@@ -1,4 +1,4 @@
-"""Batch-convert many files, optionally sharded across every TPU chip."""
+"""Batch-convert many files, optionally sharded across every device."""
 
 import sys
 import tempfile
@@ -24,7 +24,7 @@ def main(use_mesh=True):
         x3as.append(str(work / f"batch{i}.x3a"))
         backs.append(str(work / f"batch{i}_back.wav"))
 
-    mesh = make_mesh() if use_mesh else None  # frames shard across all chips
+    mesh = make_mesh() if use_mesh else None  # frames shard across all devices
     results = wav_to_x3a_batch(wavs, x3as, mesh=mesh)
     counts = x3a_to_wav_batch(x3as, backs, mesh=mesh)
     print("files:", len(results), "samples decoded per file:", counts)

@@ -2,7 +2,7 @@
 //
 // The reference implementation's entire runtime is native (Rust, see
 // /root/reference/src/encoder.rs, decoder.rs, bitpacker.rs, bitreader.rs,
-// crc.rs).  This C++ core is the TPU framework's host-side equivalent: a
+// crc.rs).  This C++ core is the framework's host-side equivalent: a
 // scalar encoder/decoder with the exact same on-the-wire format, used as
 //   * the "native" engine for small/streaming workloads where a device
 //     round-trip is not worth it,
@@ -228,7 +228,7 @@ uint16_t x3_crc16(const uint8_t* data, int64_t len) {
 
 // ---------------------------------------------------------------------------
 // Parameters (x3.rs:81-134).  Rice codes are computed in closed form — the
-// same identities the TPU kernel uses (see ops/encode_kernel.py).
+// same identities the device kernel uses (see ops/encode_kernel.py).
 // ---------------------------------------------------------------------------
 
 struct X3Params {
@@ -1234,7 +1234,7 @@ int32_t x3_decode_frames_mt(const uint8_t* data, const int64_t* payload_offsets,
 
 // Assemble a frame stream from batched device outputs: out = concat over
 // frames of (20-byte header || payload[:nbytes]).  Replaces the per-frame
-// Python assembly loop in the TPU pipeline's host epilogue.  Returns bytes
+// Python assembly loop in the device pipeline's host epilogue.  Returns bytes
 // written, or -1 if cap is too small.
 int64_t x3_assemble_frames(const uint8_t* headers, const uint8_t* payloads,
                            const int32_t* nbytes, int64_t n_frames,

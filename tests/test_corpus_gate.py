@@ -32,8 +32,6 @@ def test_corpus_gate_synthetic():
             "JAX_PLATFORMS": "cpu",
             "PYTHONPATH": str(REPO_ROOT),
             "PATH": "/usr/bin:/bin:/usr/local/bin",
-            "JAX_COMPILATION_CACHE_DIR": "/tmp/x3_tpu_jax_cache",
-            "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "1",
         },
         timeout=500,
     )
@@ -250,27 +248,6 @@ def test_structured_mutation_fuzz(kind):
                     np.testing.assert_array_equal(sample_sets[0], s, err_msg=ctx)
             else:
                 # Same error class across engines (kernel codes map to the
-                # reference taxonomy).
+                # reference error classes).
                 classes = set(err_engines.values())
                 assert len(classes) == 1, f"error-class divergence ({ctx}): {err_engines}"
-
-
-@pytest.mark.slow
-def test_cold_cache_compile_sweep():
-    """Every (kernel, width rung) pair the file pipeline dispatches must
-    compile from a cold cache — the persistent compile cache can mask
-    compile-time failures (e.g. scoped-VMEM overflows at the worst-case
-    width) until an unrelated change bumps the module hash."""
-    import subprocess
-    import sys
-
-    proc = subprocess.run(
-        [sys.executable, str(REPO_ROOT / "tools" / "compile_sweep.py"), "--cpu-mesh",
-         "--enc-batch", "64", "--dec-batch", "128"],
-        capture_output=True,
-        text=True,
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
-        timeout=900,
-    )
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "all configurations compile cold" in proc.stdout

@@ -35,26 +35,3 @@ def test_crc16_many_matches_scalar(rng):
 
 def test_crc16_empty():
     assert crc16(b"") == 0xFFFF
-
-
-def test_pallas_crc_kernel_interpret(rng):
-    """The k-major Pallas CRC kernel (interpret mode) equals the scalar CRC."""
-    import jax.numpy as jnp
-
-    import x3_tpu.ops.crc_pallas as cp
-    from x3_tpu.ops.crc_jax import _crc16_finish, crc_matmul_consts
-
-    orig = (cp.F_TILE, cp.CW)
-    cp.F_TILE, cp.CW = 2, 4
-    try:
-        w = 8
-        words = rng.integers(0, 1 << 32, (4, w), dtype=np.uint64).astype(np.uint32)
-        m, const_init, inv = crc_matmul_consts(w * 4)
-        mk = np.ascontiguousarray(cp.permute_m_rows(m, w).T)  # transposed operand
-        planes = np.asarray(cp.crc_planes_pallas(jnp.asarray(words), jnp.asarray(mk), w, True)) & 1
-        lens = jnp.asarray(np.full(4, w * 4, np.int32))
-        got = np.asarray(_crc16_finish(jnp.asarray(planes), lens, const_init, inv, w * 4))
-        want = [crc16(np.ascontiguousarray(words[i]).byteswap().view(np.uint8).tobytes()) for i in range(4)]
-        assert got.tolist() == want
-    finally:
-        cp.F_TILE, cp.CW = orig

@@ -1,4 +1,4 @@
-"""Decode error taxonomy parity: each corruption class raises the SAME
+"""Decode error-class parity: each corruption class raises the SAME
 exception type across all three engines (reference: error.rs:27-62,
 decoder.rs:141-235)."""
 

@@ -231,8 +231,6 @@ def test_cli_roundtrip(tmp_path, rng):
         "JAX_PLATFORMS": "cpu",
         "PYTHONPATH": str(REPO_ROOT),
         "PATH": "/usr/bin:/bin:/usr/local/bin",
-        "JAX_COMPILATION_CACHE_DIR": "/tmp/x3_tpu_jax_cache",
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "1",
     }
     r1 = subprocess.run(
         [sys.executable, "-m", "x3_tpu", "--input", str(wav_path), "--output", str(x3a_path)],

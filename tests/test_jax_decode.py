@@ -105,48 +105,6 @@ def test_decode_frames_checked_crc(rng):
     np.testing.assert_array_equal(np.asarray(out)[0], wav)
 
 
-def test_decode_subbatch_path(rng, monkeypatch):
-    """Wide batches are decoded as sub-batches inside one jitted program
-    (the F=8192 VMEM cliff fix); results must equal the monolithic walk."""
-    from x3_tpu.ops import decode_kernel as dk
-    from x3_tpu.ops.encode_kernel import frame_geometry
-
-    from x3_tpu.ops.encode_kernel import width_rungs
-
-    S, B, L, W = frame_geometry(P)
-    wav = make_hydrophone(rng, 7 * S)
-    frames = frames_of(wav)
-    payloads = [np.frombuffer(p, np.uint8) for p, _ in frames]
-    w = next(r for r in width_rungs(P) if max(len(a) for a in payloads) <= r * 4)
-    buf = np.zeros((len(payloads), w * 4), np.uint8)
-    for i, a in enumerate(payloads):
-        buf[i, : len(a)] = a
-    ns = np.array([s for _, s in frames], np.int32)
-    plens = np.array([len(a) for a in payloads], np.int32)
-    want, werr = dk.decode_frames(buf, ns, plens, P)
-    want, werr = np.asarray(want), np.asarray(werr)
-    crc_w = np.asarray(dk.decode_frames_checked(buf, ns, plens, P)[2])
-    # The jit cache keys on shapes, not module state: clear it so the
-    # patched threshold actually retraces the sub-batched program.
-    monkeypatch.setattr(dk, "_DECODE_SUBBATCH", 3)
-    dk.decode_frames.clear_cache()
-    dk.decode_frames_checked.clear_cache()
-    try:
-        got, gerr = dk.decode_frames(buf, ns, plens, P)
-        gout, gerr2, crc_g = dk.decode_frames_checked(buf, ns, plens, P)
-        np.testing.assert_array_equal(np.asarray(got), want)
-        np.testing.assert_array_equal(np.asarray(gerr), werr)
-        np.testing.assert_array_equal(np.asarray(crc_g), crc_w)
-        np.testing.assert_array_equal(np.asarray(gout), want)
-        assert not werr.any()
-        np.testing.assert_array_equal(
-            np.concatenate([np.asarray(got)[i, :n] for i, n in enumerate(ns)]), wav
-        )
-    finally:
-        dk.decode_frames.clear_cache()
-        dk.decode_frames_checked.clear_cache()
-
-
 def test_decode_width_rung_independent(rng):
     """decode_frames infers W from the buffer shape; a compact rung must
     give identical samples, error codes, and device CRCs to the full

@@ -93,69 +93,6 @@ def test_rice_closed_form_matches_tables():
         np.testing.assert_array_equal(np.asarray(bits), rc.num_bits, err_msg=f"bits order {order}")
 
 
-def test_pallas_pack_mode_agrees(rng):
-    """block_pallas (interpret-mode on CPU) vs block: identical words."""
-    import jax
-
-    from x3_tpu.ops import pack_pallas
-    from x3_tpu.ops.encode_kernel import encode_frames
-
-    tiny = Parameters(block_len=4, blocks_per_frame=8)
-    wav = make_mixed(rng, 80)
-    batch = np.zeros((2, tiny.samples_per_frame), np.int16)
-    batch[0] = wav[:32]
-    batch[1, :16] = wav[32:48]
-    nv = np.array([32, 16], np.int32)
-    orig_tile = pack_pallas.LANE_TILE
-    pack_pallas.LANE_TILE = 16  # keep interpret mode fast
-    try:
-        if jax.default_backend() == "cpu":
-            orig = pack_pallas.pack_blocks_pallas
-
-            def interp(iv, il, rr, nb4, interpret):
-                return orig(iv, il, rr, nb4, True)
-
-            pack_pallas.pack_blocks_pallas = interp
-        a = encode_frames(batch, nv, tiny, "block_pallas")
-        b = encode_frames(batch, nv, tiny, "block")
-        np.testing.assert_array_equal(np.asarray(a["payload_words"]), np.asarray(b["payload_words"]))
-        np.testing.assert_array_equal(np.asarray(a["crc"]), np.asarray(b["crc"]))
-    finally:
-        pack_pallas.LANE_TILE = orig_tile
-        if jax.default_backend() == "cpu":
-            pack_pallas.pack_blocks_pallas = orig
-
-
-def test_fused_pallas_mode_agrees(rng):
-    """fused_pallas (front + packer kernels, interpret on CPU) vs block."""
-    import jax
-
-    from x3_tpu.ops import front_pallas, pack_pallas
-    from x3_tpu.ops.encode_kernel import encode_frames
-
-    tiny = Parameters(block_len=4, blocks_per_frame=8)
-    wav = make_mixed(rng, 80)
-    batch = np.zeros((2, tiny.samples_per_frame), np.int16)
-    batch[0] = wav[:32]
-    batch[1, :17] = wav[32:49]
-    nv = np.array([32, 17], np.int32)
-    of, op = front_pallas.encode_front_pallas, pack_pallas.pack_blocks_pallas
-    ot = (front_pallas.LANE_TILE, pack_pallas.LANE_TILE)
-    front_pallas.LANE_TILE = pack_pallas.LANE_TILE = 16
-    try:
-        if jax.default_backend() == "cpu":
-            front_pallas.encode_front_pallas = lambda *a: of(*a[:7], True)
-            pack_pallas.pack_blocks_pallas = lambda iv, il, rr, nb4, i: op(iv, il, rr, nb4, True)
-        a = encode_frames(batch, nv, tiny, "fused_pallas")
-        b = encode_frames(batch, nv, tiny, "block")
-        for k in ["payload_words", "nbytes", "crc", "stats", "total_bits"]:
-            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
-    finally:
-        front_pallas.LANE_TILE, pack_pallas.LANE_TILE = ot
-        front_pallas.encode_front_pallas = of
-        pack_pallas.pack_blocks_pallas = op
-
-
 def test_compact_width_rung_bit_exact(rng):
     """A compact w_words specialization produces the identical payload
     (prefix words, nbytes, crc, stats) whenever the frames fit it."""
@@ -312,24 +249,3 @@ def test_adaptive_block_width_escalates_and_matches_oracle(rng):
     got = encode(wav, P, engine="jax", batch_frames=2)
     assert got.data == want
     assert got.block_width_used is not None
-
-
-def test_subbatched_wide_encode_matches_monolithic(rng):
-    """Batches past the VMEM-residency threshold are chunked into 768-frame
-    sub-batches inside the jit; outputs must equal the monolithic trace."""
-    import jax
-
-    from x3_tpu.ops import encode_kernel as ek
-
-    tiny = Parameters(block_len=4, blocks_per_frame=8)
-    spf = tiny.samples_per_frame
-    F = 1100  # > _SUBBATCH_THRESHOLD, non-multiple of _SUBBATCH
-    wav = make_hydrophone(rng, F * spf).reshape(F, spf)
-    nv = np.full(F, spf, np.int32)
-    nv[-1] = 5
-    mono = jax.jit(
-        lambda s, n: ek._encode_frames_body(s, n, tiny, "block", None, None)
-    )(wav, nv)
-    sub = ek.encode_frames(wav, nv, tiny)
-    for k in mono:
-        np.testing.assert_array_equal(np.asarray(sub[k]), np.asarray(mono[k]), err_msg=k)

@@ -57,7 +57,6 @@ def test_two_process_distributed_pipeline(tmp_path):
     env = {
         "JAX_PLATFORMS": "cpu",
         "PATH": "/usr/bin:/bin:/usr/local/bin",
-        "JAX_COMPILATION_CACHE_DIR": "/tmp/x3_tpu_jax_cache",
         "HOME": "/root",
     }
     procs = [

@@ -102,3 +102,22 @@ def test_roundtrip_step_jits(rng):
     nbytes, exact = step(wavs, n)
     assert bool(exact)
     assert np.asarray(nbytes).shape == (F,)
+
+
+def test_dryrun_multichip_on_four_devices(capsys):
+    """The dry run uses the process's own devices (four of the virtual
+    eight here), at tiny and default geometry."""
+    import __graft_entry__
+
+    __graft_entry__.dryrun_multichip(4)
+    out = capsys.readouterr().out
+    assert "[tiny]: 4 devices" in out and "[default]: 4 devices" in out
+
+
+def test_dryrun_multichip_raises_when_devices_are_short():
+    import pytest
+
+    import __graft_entry__
+
+    with pytest.raises(RuntimeError, match="need 16 devices"):
+        __graft_entry__.dryrun_multichip(16)

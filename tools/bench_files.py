@@ -78,7 +78,6 @@ def main():
     ap.add_argument("--engines", default="jax,native", help="comma-separated engines")
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/x3_tpu_jax_cache")
     from x3_tpu.files import wav_to_x3a, x3a_to_wav
     from x3_tpu.utils.wav import read_wav
 

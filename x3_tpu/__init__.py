@@ -1,4 +1,4 @@
-"""x3_tpu — TPU-native X3 lossless audio codec.
+"""x3_tpu — X3 lossless audio codec on JAX/XLA.
 
 A brand-new JAX/XLA implementation of the X3 codec (Shorten-style lossless
 compression for low-entropy audio) with the same capabilities and bit-exact
@@ -8,10 +8,10 @@ on-the-wire format as the Rust reference `psiphi75/x3-rust`:
 * `encode` / `decode_frame` — array API (models/encoder.py, models/decoder.py)
 * `python -m x3_tpu` — CLI (cli.py)
 
-The compute path is redesigned TPU-first: encode is batched tensor math over
-[frames, blocks, samples] with prefix-sum bit packing; decode is
+The compute path is redesigned for an accelerator: encode is batched tensor
+math over [frames, blocks, samples] with prefix-sum bit packing; decode is
 frame-parallel with branch-free per-sample steps; CRC16 runs as a GF(2)
-matmul on the MXU.  See SURVEY.md for the full design rationale.
+matmul.  See SURVEY.md for the full design rationale.
 """
 
 from .params import Parameters, X3aSpec

@@ -215,7 +215,7 @@ def find_sync_file(f, start: int, n: int | None = None, chunk: int = 1 << 20) ->
 
 def find_sync(data: bytes, start: int) -> int:
     """Vectorized scan for the next byte offset whose bytes look like a valid
-    frame header ('x3' key + valid header CRC).  TPU-era replacement for the
+    frame header ('x3' key + valid header CRC).  Vectorized replacement for the
     reference's dormant find_le_u16 scanner (bytereader.rs:62-79)."""
     arr = np.frombuffer(data, dtype=np.uint8)
     n = len(arr)

@@ -78,7 +78,7 @@ class ByteWriterInsufficientMemory(X3Error):
 
 
 # Mapping from the batched decode kernel's per-frame error codes
-# (ops.decode_kernel.ERR_*) to the reference's error taxonomy
+# (ops.decode_kernel.ERR_*) to the reference's error classes
 # (error.rs:27-62): 1 invalid BFP, 2 out-of-bounds inverse, 3 the
 # bitstream overran / payload too large (unexpected end), 4 payload CRC.
 DECODE_ERROR_CLASSES: dict[int, type] = {

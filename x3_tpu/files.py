@@ -43,11 +43,13 @@ from .utils.io import prefetch_iter
 from .utils.wav import WavWriter
 
 DEFAULT_BATCH_FRAMES = 256
-# Measured jax-engine sweet spots (v5e, ROADMAP.md): device encode peaks at
-# F=768; device decode reaches ~88% of its F=6144 peak already at F=2048 at
-# a third of the working memory (~41 MB of decoded samples per batch), so
-# the file paths default to these when the engine resolves to jax instead
-# of a flat 256 (which leaves ~10x device throughput on the table).
+# Batch sizes for the jax engine: wide enough to fill the device, small
+# enough to keep the file paths' memory bounded (~41 MB of decoded samples
+# per decode batch).  On an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/geometry_ab.py), encode ran at the same rate at F=768 and F=1536
+# (0.612 and 1.218 ms); decode took 12.4 ms at F=2048 and 10.4 ms at
+# F=6144, so wider decode batches are nearly free on the device, but they
+# pad to a power of two in decode_frames_batch and multiply host memory.
 JAX_ENCODE_BATCH_FRAMES = 768
 JAX_DECODE_BATCH_FRAMES = 2048
 
@@ -607,7 +609,7 @@ class X3aReader:
 
     def _decode_single(self, i: int) -> None:
         """Decode exactly frame i, raising its own error class (payload CRC
-        checked first, then the engine's decode taxonomy)."""
+        checked first, then the engine's decode error classes)."""
         from .errors import decode_error
 
         (payload,) = _read_payloads(self._f, self._index[i : i + 1])

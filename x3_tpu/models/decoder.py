@@ -60,7 +60,7 @@ def decode_frames_batch(payloads, n_samples, params: Parameters | None = None, c
     mappable to exceptions via errors.decode_error.
 
     check_crcs: optional list of expected payload CRC16s — when given, the
-    CRCs are verified ON DEVICE (fused MXU matmul) and mismatches are
+    CRCs are verified ON DEVICE (fused GF(2) matmul) and mismatches are
     reported as a third return value (crc_ok bool array)."""
     from ..ops.decode_kernel import decode_frames, decode_frames_checked
 
@@ -74,7 +74,7 @@ def decode_frames_batch(payloads, n_samples, params: Parameters | None = None, c
     # longest payload — compact rungs when everything fits the defaults.
     n_blocks, w = decode_geometry(params, n_samples, [len(a) for a in arrs])
     # Pad the lane count to a power-of-two bucket: batch tails vary per
-    # file, and each distinct (F, W) shape is a fresh 20-40 s TPU compile.
+    # file, and each distinct (F, W) shape is a fresh device compile.
     # Dummy lanes (n_samples=0, zero payload) decode to nothing by design.
     fp = 1 << max(0, (f - 1).bit_length())
     buf = np.zeros((fp, w * 4), dtype=np.uint8)

@@ -1,4 +1,4 @@
-"""Public encode API: the TPU batched pipeline with host frame assembly.
+"""Public encode API: the batched device pipeline with host frame assembly.
 
 Mirrors the reference's `encoder::encode` surface (encoder.rs:51-111): takes
 a mono int16 sample stream, emits the concatenated frame stream (headers +
@@ -86,7 +86,7 @@ def encode(
 ) -> EncodeResult:
     """Encode a mono int16 stream into a frame stream (no archive header).
 
-    engine: "jax" (batched TPU pipeline), "native" (C++ host core),
+    engine: "jax" (batched device pipeline), "native" (C++ host core),
     "numpy" (oracle), or "auto" (routed by workload shape — engine.py).
     width_hint: start the adaptive payload-width ladder at the smallest rung
     covering this many words (callers with cross-call context, e.g. the

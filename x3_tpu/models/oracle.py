@@ -1,7 +1,7 @@
 """Reference-pure oracle codec: a direct, slow, bit-exact X3 encoder/decoder
 in plain Python/NumPy.
 
-This module is the differential oracle for the TPU pipelines (SURVEY.md §7
+This module is the differential oracle for the device pipelines (SURVEY.md §7
 step 2): every golden byte vector from the reference's inline tests is pinned
 against it, and the batched JAX kernels are validated against it on random
 corpora.  Behavior follows the reference semantics exactly:

@@ -7,7 +7,7 @@ names them — a convention this framework adds on top of the format (the
 archives remain plain, individually decodable X3 files).
 
 All channels' frames share device batches during encode (multifile), which
-is exactly the batched multi-file shape the TPU pipeline likes.
+is exactly the batched multi-file shape the device pipeline likes.
 """
 
 from __future__ import annotations

@@ -2,12 +2,20 @@
 
 The reference's runtime is entirely native; this module exposes the
 framework's C++ equivalent as the "native" engine.  The library is built on
-demand with `make -C native` and loaded lazily; everything degrades
-gracefully to the Python oracle when no toolchain is available."""
+demand from native/x3core.cpp with `make -C native` and loaded lazily;
+everything degrades gracefully to the Python oracle when no toolchain is
+available.
+
+The build uses -march=native, so a library built on one CPU may fault on
+another.  Each host therefore builds its own copy, under native/build/ with
+a name keyed by the CPU's model and feature flags; a checkout copied to
+another machine rebuilds instead of loading a foreign binary."""
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import platform
 import subprocess
 from pathlib import Path
 
@@ -22,7 +30,26 @@ from .errors import (
 from .params import Parameters
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libx3core.so"
+
+
+def host_tag() -> str:
+    """Short fingerprint of this host's CPU: architecture, model name and
+    feature flags (what -march=native compiles for)."""
+    fields = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    fields.append(line.strip())
+                if line.strip() == "":  # first processor's block is enough
+                    break
+    except OSError:
+        fields.append(platform.processor())
+    return hashlib.sha1("\n".join(fields).encode()).hexdigest()[:12]
+
+
+_LIB_PATH = _NATIVE_DIR / "build" / f"libx3core-{host_tag()}.so"
 _lib = None
 
 
@@ -49,15 +76,18 @@ _build_failed = False
 
 
 def build(force: bool = False) -> bool:
-    """Build libx3core.so (make is a fast no-op when the source is
-    unchanged, and rebuilds stale binaries after source edits).  Returns
-    True when the library exists; a failed build is cached so the make
-    subprocess is not retried on every call."""
+    """Build this host's library (make is a fast no-op when the source is
+    unchanged, and rebuilds stale binaries after source edits; force=True
+    rebuilds unconditionally).  Returns True when the library exists; a
+    failed build is cached so the make subprocess is not retried on every
+    call."""
     global _build_failed
     if _build_failed and not force:
         return _LIB_PATH.exists()
+    lib = _LIB_PATH.relative_to(_NATIVE_DIR)
+    cmd = ["make", "-C", str(_NATIVE_DIR), f"LIB={lib}"] + (["-B"] if force else [])
     try:
-        subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True)
+        subprocess.run(cmd, check=True, capture_output=True)
     except (OSError, subprocess.CalledProcessError):
         _build_failed = True
     return _LIB_PATH.exists()
@@ -232,7 +262,7 @@ def decode_frame(payload: bytes, params: Parameters, samples: int) -> np.ndarray
 
 def assemble_frames(headers: np.ndarray, payloads: np.ndarray, nbytes: np.ndarray) -> bytes:
     """Concatenate (header || payload[:nbytes]) over frames in C
-    (the TPU pipeline's host-epilogue assembly; one memcpy pass)."""
+    (the device pipeline's host-epilogue assembly; one memcpy pass)."""
     lib = load()
     if lib is None:
         raise X3Error("native library unavailable")

@@ -1,33 +1,22 @@
-"""Device kernels (encode/decode/CRC/pack) and the host bit-I/O oracle.
+"""Device ops (encode/decode/CRC) and the host bit-I/O oracle.
 
-Importing this package configures JAX's persistent compilation cache (if
-the user has not already done so): the codec's jitted pipelines compile in
-tens of seconds on TPU, and without an on-disk cache every fresh process
-pays that again.  Explicit user configuration always wins.
+Importing this package places JAX's persistent compilation cache, so that a
+fresh process does not compile the codec's jitted pipelines again.  Where
+JAX_COMPILATION_CACHE_DIR (or jax.config) names a cache, JAX uses it and
+nothing here changes it; otherwise the cache is <repo>/.jax_cache, a fixed
+path inside the checkout that .gitignore lists.
 """
 
-import os
+from pathlib import Path
+
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def _ensure_compile_cache() -> None:
-    try:
-        import jax
+def _place_compile_cache() -> None:
+    import jax
 
-        if jax.config.jax_compilation_cache_dir is None:
-            # Only then touch os.environ (so child processes inherit the
-            # same cache); a user who already configured a cache — via env
-            # or jax.config — keeps theirs and their environment untouched.
-            os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/x3_tpu_jax_cache")
-            os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-            jax.config.update(
-                "jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"]
-            )
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs",
-                float(os.environ["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"]),
-            )
-    except Exception:  # pragma: no cover - jax absent or locked config
-        pass
+    if jax.config.jax_compilation_cache_dir is None:
+        jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
 
 
-_ensure_compile_cache()
+_place_compile_cache()

@@ -2,7 +2,7 @@
 
 The reference implements these as sequential state machines
 (`BitPacker`, /root/reference/src/bitpacker.rs:46-177 and `BitReader`,
-/root/reference/src/bitreader.rs:51-176).  The TPU pipelines replace them
+/root/reference/src/bitreader.rs:51-176).  The device pipelines replace them
 with prefix-sum offset computation plus vectorized packing/extraction
 (see ops/encode_kernel.py / ops/decode_kernel.py); these plain-Python
 equivalents exist as the differential oracle and for the scalar host path.

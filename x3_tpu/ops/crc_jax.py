@@ -1,4 +1,4 @@
-"""Batched CRC-16/CCITT on TPU, reformulated for the MXU.
+"""Batched CRC-16/CCITT on device, reformulated as a matmul.
 
 The reference computes CRCs with a sequential byte-at-a-time table walk
 (/root/reference/src/crc.rs:44-58).  That chain looks unparallelizable, but
@@ -8,7 +8,7 @@ table T both GF(2)-linear), the CRC of an n-byte buffer with init I is
     crc = S^n(I)  ^  sum_k S^(n-1-k)(T[b_k])
 
 The data part is a fixed GF(2) matrix applied to the buffer's bits, i.e. a
-binary matmul — which is exactly what the MXU is for.  The pipeline packs
+binary matmul — a dense, fully parallel operation.  The pipeline packs
 every frame's payload into a static-size zero-padded buffer, so:
 
 1. `crc = const ^ (bits @ M) & 1` — one int8 matmul over [F, n_bits] with a
@@ -108,17 +108,6 @@ def crc_matmul_consts(n_bytes: int):
     return m, const_init, inv_pows
 
 
-@functools.lru_cache(maxsize=8)
-def _crc_consts_kmajor(n_words: int):
-    """crc_matmul_consts with M rows permuted to the Pallas kernel's
-    k-major bit-plane order and TRANSPOSED to [16, n_bits] (the transposed
-    operand avoids 8x lane padding in VMEM — see crc_planes_pallas)."""
-    from .crc_pallas import permute_m_rows
-
-    m, const_init, inv_pows = crc_matmul_consts(n_words * 4)
-    return np.ascontiguousarray(permute_m_rows(m, n_words).T), const_init, inv_pows
-
-
 def crc16_padded_jax(byte_rows, lengths, n_bytes: int):
     """CRC16 of `lengths[i]` leading bytes of each row of a zero-padded
     [F, n_bytes] uint8 array, on device.  Rows MUST be zero beyond their
@@ -131,26 +120,8 @@ def crc16_padded_jax(byte_rows, lengths, n_bytes: int):
 
 def crc16_words_jax(word_rows, lengths, n_words: int):
     """Same as crc16_padded_jax but over big-endian u32 word rows [F, W]
-    (the packed payload), avoiding a device-side byte expansion.
-
-    On TPU the GF(2) matmul runs as a Pallas kernel that keeps the
-    contribution matrix VMEM-resident and unpacks bits in registers
-    (ops/crc_pallas.py); elsewhere the jnp expansion path is used."""
-    import jax
+    (the packed payload), avoiding a device-side byte expansion."""
     import jax.numpy as jnp
-
-    if jax.default_backend() == "tpu":
-        from .crc_pallas import CW, F_TILE, crc_planes_pallas
-
-        f, w = word_rows.shape
-        wp = -(-n_words // CW) * CW
-        fp = -(-f // F_TILE) * F_TILE
-        rows = word_rows
-        if wp != w or fp != f:
-            rows = jnp.zeros((fp, wp), jnp.uint32).at[:f, :w].set(word_rows)
-        mk, const_init, inv_pows = _crc_consts_kmajor(wp)
-        planes = crc_planes_pallas(rows, jnp.asarray(mk), wp)[:f] & 1
-        return _crc16_finish(planes, lengths, const_init, inv_pows, wp * 4)
 
     shifts = jnp.arange(31, -1, -1, dtype=jnp.uint32)
     bits = ((word_rows[:, :, None] >> shifts) & 1).astype(jnp.int8)

@@ -1,4 +1,4 @@
-"""Frame-parallel TPU decode pipeline.
+"""Frame-parallel device decode pipeline (plain jax.numpy/lax, no kernel).
 
 The reference decoder walks the bitstream sample-by-sample in scalar Rust
 (/root/reference/src/decoder.rs:36-235 over the BitReader word cache,
@@ -9,11 +9,9 @@ payload (SURVEY.md §5 "checkpoint/resume") — so the frame axis is the
 parallel axis: all lanes of a [F] batch step through their bitstreams in
 lockstep, every per-sample operation a branch-free vector op across frames.
 
-Performance model (measured on v5e, see ROADMAP.md): the actual VPU compute
-of the whole walk is tiny; the cost that dominates a naive one-gather-per-
-block scan is the PER-STEP latency of a data-dependent gather inside
-`lax.scan` (~10 us/step — the DMA cannot be prefetched because its indices
-come from the previous iteration's decode).  The kernel therefore:
+Structure: the walk is a `lax.scan` whose every step needs a data-dependent
+gather (its indices come from the previous step's decode), so the scan
+minimizes dependent gathers per block:
 
 * processes U blocks per scan step with ONE shared K*G-word slice gather
   (U*MAXADV words of worst-case advance fit in the gathered window), cutting
@@ -23,9 +21,8 @@ come from the previous iteration's decode).  The kernel therefore:
 * extracts each code's 32-bit view with a barrel pick of 2 words whose
   select depth is bounded per unrolled sample k (sample k of a block cannot
   start more than (37+16k)/32 words in — codes are <= 16 bits);
-* keeps per-step state in registers so wide batches (F = 2048+) amortize the
-  remaining fixed step cost — throughput scales with F, unlike the
-  VMEM-bound design this replaces.
+* keeps per-step state small so wide batches (F = 2048+) amortize the
+  remaining fixed step cost.
 
 The sample walk is unrolled for block_len <= 24 and a rolling-register
 lax.scan beyond that (compile cost O(1) in block_len).  Block outputs stack
@@ -54,29 +51,40 @@ ERR_INVALID_BPF = 1
 ERR_OOB_INVERSE = 2
 ERR_OVERRUN = 3
 
-# Chunked-gather geometry: G-word slice granularity, K slices per gather.
-# On TPU, wide chunks (U blocks per dependent gather) amortize the per-step
-# DMA latency; XLA:CPU compile time explodes on wide-chunk traces once the
-# block count is non-trivial (measured: L=1/U=7 at B=96 blocks exceeds 100 s
-# of fresh compile while U=1 takes 0.9 s; default L=20/U=1 at B=500 is ~4 s),
-# so the CPU config runs one block per step except for tiny geometries,
-# which keep U > 1 so the chunked code path stays CPU-tested.  Correctness
-# is config-independent: all configs are bit-exact.
+# Chunked-gather geometry: G-word slice granularity, K slices per gather,
+# U blocks walked per dependent gather.  XLA:CPU compile time explodes on
+# wide-chunk traces once the block count is non-trivial (measured: L=1/U=7
+# at B=96 blocks exceeds 100 s of fresh compile while U=1 takes 0.9 s;
+# default L=20/U=1 at B=500 is ~4 s), so the CPU config runs one block per
+# step except for tiny geometries, which keep U > 1 so the chunked code
+# path stays CPU-tested.  Correctness is config-independent: all configs
+# are bit-exact.
+#
+# GPU: _GPU_GATHER = (G, U or None for the widest U the window allows).
+# Measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit (decode
+# F=6144 hydrophone frames at the 2048-word rung, tools/geometry_ab.py):
+# (64, widest U = 4) 10.39 ms, (64, 1) 30.91 ms, (16, 1) 27.56 ms of device
+# time; cold compile 39.0 s, 11.9 s and 11.7 s.  The scan is step-bound
+# there, so fewer, wider steps win despite the longer compile.
+_GPU_GATHER = (64, None)
+
+
 def _gather_geometry(L: int, WIN: int, B: int) -> tuple[int, int, int]:
     """(G, K, U) for the current backend.
 
     Constraint: the first block may start G-1 words into the gathered K*G
     window, each block advances at most MAXADV words, and every block needs
     WIN words of lookahead: (G-1) + U*MAXADV + WIN <= K*G."""
-    import jax
-
     maxadv = (6 + 16 * L + 31) // 32 + 1
-    G = 64 if jax.default_backend() != "cpu" else 16
+    cpu = jax.default_backend() == "cpu"
+    G, u_pin = (16, None) if cpu else _GPU_GATHER
     K = max(2, -(-(G - 1 + WIN + maxadv) // G))
     U = max(1, (K * G - G + 1 - WIN) // maxadv)
-    if jax.default_backend() == "cpu" and not (B <= 32 and L <= 8):
+    if cpu and not (B <= 32 and L <= 8):
         U = 1
-    return G, K, U
+    if u_pin is not None:
+        U = min(U, u_pin)
+    return G, K, max(1, min(U, B))  # more blocks per step than a frame has is dead work
 
 
 def _decode_tables(params: Parameters):
@@ -125,72 +133,18 @@ def _barrel(cur: list, idx, nout: int, maxidx: int) -> list:
     return [cur[i] if i < len(cur) else zero for i in range(nout)]
 
 
-
-
 @functools.partial(jax.jit, static_argnums=(3, 4))
 def decode_frames_checked(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Array, params: Parameters, n_blocks: int | None = None):
     """decode_frames plus device-side payload CRC16 (the batched integrity
     check of SURVEY.md §5): returns (samples, err, crc int32 [F]).  The CRC
-    rides the MXU matmul over the words the decoder already built, so the
+    is a GF(2) matmul over the words the decoder already built, so the
     file pipeline needs no host CRC pass at all."""
     from .crc_jax import crc16_words_jax
 
     W = payload.shape[1] // 4  # matches _decode_impl's inferred width
-    F = payload.shape[0]
-    if _use_pallas_decode(F, W, params, n_blocks):
-        from .decode_pallas import decode_frames_pallas_words
-
-        out, err, words = decode_frames_pallas_words(
-            payload, n_samples, payload_lens, params, n_blocks
-        )
-        crc = crc16_words_jax(words, payload_lens.astype(jnp.int32), W)
-        return out, err, crc.astype(jnp.int32)
-    if F > _DECODE_SUBBATCH:
-        parts = []
-        for b in range(0, F, _DECODE_SUBBATCH):
-            out, err, words = _decode_impl(
-                payload[b : b + _DECODE_SUBBATCH],
-                n_samples[b : b + _DECODE_SUBBATCH],
-                payload_lens[b : b + _DECODE_SUBBATCH],
-                params,
-                n_blocks,
-            )
-            crc = crc16_words_jax(
-                words, payload_lens[b : b + _DECODE_SUBBATCH].astype(jnp.int32), W
-            )
-            parts.append((out, err, crc.astype(jnp.int32)))
-        return tuple(jnp.concatenate([p[i] for p in parts], axis=0) for i in range(3))
     out, err, words = _decode_impl(payload, n_samples, payload_lens, params, n_blocks)
     crc = crc16_words_jax(words, payload_lens.astype(jnp.int32), W)
     return out, err, crc.astype(jnp.int32)
-
-
-# The scan's per-step working set scales with the lane count; past the
-# F=6144 sweet spot it spills and throughput cliffs (measured v5e, steps of
-# 125: 49 us/step at F=2048, 132 at 6144 — near-linear — then 253 at 8192).
-# Wider batches are therefore walked as sub-batches inside ONE jitted
-# program, like encode's _SUBBATCH.
-_DECODE_SUBBATCH = 6144
-
-
-def _use_pallas_decode(F: int, W: int, params: Parameters, n_blocks: int | None) -> bool:
-    """Route eligible decodes to the VMEM-resident Pallas kernel
-    (ops/decode_pallas.py).  Measured on v5e at F=6144 vs the XLA scan,
-    at each rung's measured-optimal (U, TF, dma_words) geometry
-    (decode_pallas._auto_geometry): W=512 31-35 vs 7.8 GB/s, W=1024 26.3
-    vs ~7.7, W=2048 22.6-24.1 vs 7.5, W=4096 10.9-11.3 vs 5.0, full
-    W=5096 9.1 vs 4.8.  Mosaic is TPU-only; small batches would mostly
-    pad the lane tile; wide geometry-general overrides whose tile exceeds
-    scoped VMEM stay on the scan."""
-    import os
-
-    if os.environ.get("X3_PALLAS_DECODE", "1") != "1":
-        return False
-    if jax.default_backend() == "cpu":
-        return False
-    from .decode_pallas import pallas_decode_fits
-
-    return pallas_decode_fits(params, W, n_blocks, F)
 
 
 @functools.partial(jax.jit, static_argnums=(3, 4))
@@ -205,8 +159,7 @@ def decode_frames(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Ar
         encode_kernel.width_rungs to bound the compile cache).  Semantics
         are width-independent: reads past the buffer see zeros exactly like
         the zero-padded tail of the full-width buffer, and the overrun
-        check uses the format's worst-case width.  Measured on v5e at
-        F=2048: full W=5096 6.45 ms vs W=2048 rung 6.00 ms.
+        check uses the format's worst-case width.
     n_samples: int32 [F] — sample count per frame (0 = dummy lane)
     payload_lens: int32 [F] — actual payload byte length per frame; unary
         zero counts cap at the payload end exactly like the reference's
@@ -220,27 +173,6 @@ def decode_frames(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Ar
         models/decoder.decode_geometry to bound the compile cache.
     Returns (samples int16 [F, S], err int32 [F] — ERR_* codes, 0 = ok)
     where S = 1 + n_blocks*L when overridden."""
-    F = payload.shape[0]
-    W = payload.shape[1] // 4
-    if _use_pallas_decode(F, W, params, n_blocks):
-        from .decode_pallas import decode_frames_pallas
-
-        return decode_frames_pallas(payload, n_samples, payload_lens, params, n_blocks)
-    if F > _DECODE_SUBBATCH:
-        parts = [
-            _decode_impl(
-                payload[b : b + _DECODE_SUBBATCH],
-                n_samples[b : b + _DECODE_SUBBATCH],
-                payload_lens[b : b + _DECODE_SUBBATCH],
-                params,
-                n_blocks,
-            )
-            for b in range(0, F, _DECODE_SUBBATCH)
-        ]
-        return (
-            jnp.concatenate([p[0] for p in parts], axis=0),
-            jnp.concatenate([p[1] for p in parts], axis=0),
-        )
     out, err, _ = _decode_impl(payload, n_samples, payload_lens, params, n_blocks)
     return out, err
 
@@ -259,10 +191,9 @@ def _decode_impl(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Arr
     gbits = G.bit_length() - 1
 
     # Big-endian word build from byte PLANES: slicing the u8 buffer and
-    # converting per plane fuses into one 41 MB-in/41 MB-out pass, where the
-    # naive payload.astype(u32) materializes a u32 per BYTE (167 MB at
-    # F=2048) plus a strided or-fusion — profiled at 1.7 ms of a 7.5 ms
-    # call; this form gives decode +23% end to end (5.1 -> 6.3 GB/s).
+    # converting per plane fuses into one pass, where the naive
+    # payload.astype(u32) materializes a u32 per BYTE plus a strided
+    # or-fusion.
     by = payload.reshape(F, W, 4)
     words = (
         (by[:, :, 0].astype(jnp.uint32) << 24)
@@ -373,13 +304,7 @@ def _decode_impl(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Arr
             if L <= 24:
                 # Small blocks (incl. the default 20): fully unrolled; each
                 # sample extracts its window independently — short
-                # dependency chains, everything fuses.  (Vectorizing the
-                # fixed-width ftype-0 lanes at affine offsets with a
-                # Rice-only serial walk + per-lane blend was tried and
-                # measured NEGATIVE on every class — see ROADMAP round-4
-                # item 1: the step is compute-bound, so the duplicated
-                # extraction work costs more than the serial-chain trim
-                # saves.)
+                # dependency chains, everything fuses.
                 outs = []
                 for k in range(L):
                     valid = valid_block & ((block_first + k) < n)
@@ -434,8 +359,8 @@ def _decode_impl(payload: jax.Array, n_samples: jax.Array, payload_lens: jax.Arr
         # Write this chunk's samples straight into the output carry (slot
         # b*L+k is sample 1 + b*L + k, so the stream starts at column 1
         # after the raw first sample).  The in-place dynamic_update_slice
-        # replaces a stacked-ys epilogue whose [steps, F, U*L] transpose +
-        # concat + s32->s16 convert cost ~1 ms at F=2048.
+        # replaces a stacked-ys epilogue's [steps, F, U*L] transpose +
+        # concat + s32->s16 convert.
         chunk = jnp.concatenate(blks, axis=1).astype(jnp.int16)  # [F, U*L]
         obuf = jax.lax.dynamic_update_slice(obuf, chunk, (jnp.int32(0), 1 + j * (U * L)))
         return (off, last, err, obuf), None

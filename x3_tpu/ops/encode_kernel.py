@@ -1,4 +1,4 @@
-"""Batched TPU encode pipeline: frames as tensors, bit packing by prefix sum.
+"""Batched device encode pipeline: frames as tensors, bit packing by prefix sum.
 
 The reference encoder is a sequential per-sample state machine
 (/root/reference/src/encoder.rs:175-315 driving the scratch-byte BitPacker,
@@ -14,11 +14,13 @@ programs over a [F, S] batch of frames (SURVEY.md §7):
 4. exclusive prefix sums of item bit lengths yield every item's bit offset
    (this replaces the BitPacker state machine);
 5. packing is two-level and gather/scatter-free: each block's bits go into
-   a superword-aligned register buffer (elementwise select-accumulates or
-   the fused Pallas kernel), and buffers are compacted into the frame's
-   word stream ON THE MXU via a one-hot byte-plane matmul (bit-disjoint
-   contributions make + == |);
-6. payload CRC16 runs as a GF(2) matmul on the MXU (ops/crc_jax.py).
+   a superword-aligned register buffer (elementwise select-accumulates),
+   and buffers are compacted into the frame's word stream by a one-hot
+   int8 byte-plane matmul (bit-disjoint contributions make + == |);
+6. payload CRC16 runs as a GF(2) matmul (ops/crc_jax.py).
+
+All of it is plain jax.numpy/lax that XLA compiles for whatever backend is
+present; there is no hand-written kernel.
 
 Everything runs under one jit; frame sizes vary via a per-frame valid-sample
 count (static shapes, masked lanes).
@@ -123,12 +125,9 @@ def width_rungs(params: Parameters) -> list[int]:
     writes, so it is correct even when a frame overflows the compact
     buffer) do not fit — see models/encoder.py.  Escalation jumps straight
     to the first fitting rung, so a stream pays at most ONE re-dispatch
-    regardless of ladder depth.  Measured on v5e at F=1024: full W=5096
-    3.8 ms vs W=2048 2.7 ms (+40%); on a very-compressible corpus
-    (PI240-class, ratio ~7+) the finer rungs win again: encode 9.9 ->
-    11.5 GB/s at W=512 (F=768), decode 7.43 -> 7.74 GB/s (F=6144); and on
-    the music class (ratio ~1.3) W=4096 still beats the 5096 worst case by
-    ~8% (with NW=10, 5.9 -> 7.4 GB/s combined)."""
+    regardless of ladder depth.  The ladder gives each signal class a rung
+    near its own payload size: very compressible (PI240-class) audio at
+    512, hydrophone at 2048, music-class at 4096, noise at full width."""
     _, _, _, W = frame_geometry(params)
     ladder = [r for r in (512, 1024, 2048, 4096) if W > r]
     return ladder + [W]
@@ -149,19 +148,15 @@ def fits_width(nbytes, w_words: int, params: Parameters | None = None) -> bool:
 def block_width_rungs(params: Parameters) -> list[int]:
     """Ascending block-buffer width (NW) specializations for adaptive encode.
 
-    The level-1 select-accumulate pack and the MXU merge both scale with
+    The level-1 select-accumulate pack and the matmul merge both scale with
     NB4 = NW + GR - 1 word slots, but block_buffer_words sizes NW for an
     INCOMPRESSIBLE block (16 bits/sample) while compressible audio's blocks
     run ~6-8 bits/sample.  Same trick as width_rungs at block granularity:
     encode at a compact NW, escalate (sticky) when any block's
     r2 + block_bits exceeds the compact buffer — see fits_block_width and
-    models/encoder.py.  Measured on v5e (hydrophone corpus, F=768,
-    W rung 2048): NW=12 1.76 ms vs NW=6 1.43 ms; with the F=768 sweet spot
-    this took device encode 8.6 -> ~11 GB/s.  NW=4 (very compressible
-    corpora whose blocks run ~2-3 words) adds 10.0 -> 11.5 GB/s at W=512
-    on the PI240 class; NW=10 serves the music class (blockfit ~520 bits,
-    6.4 -> 7.4 GB/s at W=4096).  NW=7 is anomalously slow — keep it off
-    ladders."""
+    models/encoder.py.  NW=4 serves very compressible corpora whose
+    blocks run ~2-3 words, NW=6 the hydrophone class and NW=10 the music
+    class (blockfit ~520 bits)."""
     full = block_buffer_words(params)
     ladder = {full}
     if full > 6:
@@ -190,9 +185,9 @@ def fits_block_width(blockfit_bits, nw_words: int, params: Parameters | None = N
 
 def _pack_segment_sum(item_val, item_len, W: int):
     """Reference pack: each item contributes to <= 2 words; disjoint-bit
-    contributions are combined with one big segment-sum scatter.  Correct but
-    scatter-bound on TPU — kept as the differential oracle for the fast
-    block-buffer pack below."""
+    contributions are combined with one big segment-sum scatter.  Kept as
+    the differential oracle for the block-buffer pack below
+    (pack_mode="segment")."""
     F, M = item_val.shape
     ends = jnp.cumsum(item_len, axis=1)
     off = ends - item_len  # exclusive prefix sum = absolute bit offsets
@@ -215,150 +210,15 @@ def _pack_segment_sum(item_val, item_len, W: int):
     return words.reshape(F, W + 1)[:, :W], total_bits.astype(jnp.int32)
 
 
-def _pack_block_buffers(item_val, item_len, W: int, NW: int = 12, use_pallas: bool = False):
-    """Two-level TPU-native bit pack (no gathers or large scatters).
-
-    item_val/item_len: uint32/int32 [F, B, I] — per-block item streams (slot 0
-    is the frame's raw first sample, nonzero only for block 0).
-
-    Level 1 packs each block's bits into an (NW+3)-word buffer aligned to the
-    block's enclosing GR-word superword —
-    purely elementwise select-accumulates over [F, B] lanes (or the fused
-    Pallas kernel in ops/pack_pallas.py).  Level 2 compacts the buffers into
-    the frame's word stream on the MXU: placement of the (monotone) block
-    rows at their start superwords is a one-hot int8 byte-plane matmul —
-    exact because contributions to any output word are bit-disjoint, so
-    integer + equals | (mod-256 masked against int8 sign wraparound) —
-    followed by static shifted adds to realign the word slots.
-    Returns (words uint32 [F, W], total_bits int32 [F]).
-    """
-    F, B, I = item_val.shape
-    GR = 8  # placement granularity in words (one-hot column = GR words)
-    NB4 = NW + GR - 1  # word slots relative to the GR-word-aligned base
-
-    ends_in = jnp.cumsum(item_len, axis=2)
-    block_bits = ends_in[:, :, -1]  # [F, B]
-    poff_in = ends_in - item_len  # exclusive, within block
-    block_end = jnp.cumsum(block_bits, axis=1)
-    block_off = block_end - block_bits  # global bit offset of block start
-    total_bits = block_end[:, -1]
-    r2 = block_off & (32 * GR - 1)  # bit offset within the GR-word superword
-    blockfit = jnp.max(r2 + block_bits, axis=1)
-
-    if use_pallas:
-        from .pack_pallas import LANE_TILE, pack_blocks_pallas
-
-        N = F * B
-        pad = (-N) % LANE_TILE
-        iv = jnp.moveaxis(item_val, 2, 0).reshape(I, N)
-        il = jnp.moveaxis(item_len, 2, 0).reshape(I, N)
-        rr = r2.reshape(1, N)
-        if pad:
-            iv = jnp.pad(iv, ((0, 0), (0, pad)))
-            il = jnp.pad(il, ((0, 0), (0, pad)))
-            rr = jnp.pad(rr, ((0, 0), (0, pad)))
-        packed = pack_blocks_pallas(iv, il, rr, NB4, False)
-        buf4 = jnp.moveaxis(packed[:, :N].reshape(NB4, F, B), 0, 2)
-    else:
-        # Pre-merge adjacent item pairs: each item is <= 16 bits, so a pair
-        # concatenates into one <= 32-bit item — halving the select-
-        # accumulate loop below (its cost is O(items * NB4)).
-        if I % 2:
-            item_val = jnp.concatenate([item_val, jnp.zeros((F, B, 1), jnp.uint32)], axis=2)
-            item_len = jnp.concatenate([item_len, jnp.zeros((F, B, 1), jnp.int32)], axis=2)
-        v0, v1 = item_val[:, :, 0::2], item_val[:, :, 1::2]
-        l0, l1 = item_len[:, :, 0::2], item_len[:, :, 1::2]
-        mval = (v0 << jnp.clip(l1, 0, 31).astype(jnp.uint32)) | v1
-        mlen = l0 + l1
-        return _pack_pairs(mval, mlen, W, NW)
-
-    words = _merge_mxu(buf4, block_off, F, B, W, NW, NB4, GR)
-    return words, total_bits.astype(jnp.int32), blockfit.astype(jnp.int32)
-
-
-def _use_fused_encode(params: Parameters, W: int, F: int) -> bool:
-    """Route encode to the fully fused Pallas kernel
-    (ops/encode_fused_pallas.py): samples in, payload words out, one
-    VMEM-resident pass — the R4-3 boundary confound removed.  The kernel
-    routes itself only to the rungs where it measured ahead of the XLA
-    pipeline (W >= 4096: music-class +15-22%; see
-    encode_fused_pallas._auto_geometry).  X3_FUSED_ENCODE=0 opts out."""
-    import os
-
-    if os.environ.get("X3_FUSED_ENCODE", "1") != "1":
-        return False
-    if jax.default_backend() == "cpu":
-        return False
-    from .encode_fused_pallas import fused_encode_fits
-
-    return fused_encode_fits(params, W, F)
-
-
-def _finish_fused(samples, n_valid, params: Parameters, W: int):
-    """Fused-kernel encode + the XLA epilogue (nbytes alignment, MXU CRC).
-    Same output contract as the default path; blocks never truncate at an
-    NW rung here (there are no block buffers), which only affects words the
-    escalation contract already discards."""
-    from .encode_fused_pallas import encode_frames_fused_words
-
-    words, total_bits, blockfit, stats = encode_frames_fused_words(
-        samples, n_valid.astype(jnp.int32), params, W
-    )
-    nbytes = (total_bits + 7) // 8
-    nbytes = nbytes + (nbytes & 1)
-    crc = crc16_words_jax(words, nbytes, W)
-    return {
-        "payload_words": words,
-        "nbytes": nbytes.astype(jnp.int32),
-        "crc": crc.astype(jnp.int32),
-        "stats": stats,
-        "total_bits": total_bits.astype(jnp.int32),
-        "blockfit_bits": blockfit.astype(jnp.int32),
-    }
-
-
-def _use_pallas_pack(W: int, B: int, L: int, P: int, F: int) -> bool:
-    """Opt-in (X3_PALLAS_PACK=1): route the pair pack to the VMEM-resident
-    Pallas walk (ops/pack_walk_pallas.py).  MEASURED NEGATIVE in context on
-    v5e (ROADMAP R4-3) — the XLA front fuses INTO the level-1 pack, so the
-    Pallas boundary forces a [F, B, P] pair materialization the default
-    path never pays, and the walk itself trails the MXU merge at F=768
-    (full encode_frames A/B, fresh process per variant: pi240 -23%,
-    hydrophone -17%, music -52%).  Kept as a tested experiment: the decode
-    kernel's resident-words structure applied to the write side."""
-    import os
-
-    if os.environ.get("X3_PALLAS_PACK", "0") != "1":
-        return False
-    if jax.default_backend() == "cpu":
-        return False
-    from .pack_walk_pallas import pallas_pack_fits
-
-    return pallas_pack_fits(W, B, L, P, F)
-
-
-def _pack_pairs_walk(mval, mlen, W: int, L: int):
-    """Pack pre-merged pairs via the Pallas walk kernel; the tiny [F, B]
-    offset/bookkeeping math stays XLA (same values as _pack_pairs so the
-    escalation contract and stats are engine-invariant)."""
-    from .pack_walk_pallas import pack_frames_walk
-
-    ends = jnp.cumsum(mlen, axis=2)
-    block_bits = ends[:, :, -1]
-    block_end = jnp.cumsum(block_bits, axis=1)
-    block_off = block_end - block_bits
-    total_bits = block_end[:, -1]
-    r2 = block_off & (32 * 8 - 1)
-    blockfit = jnp.max(r2 + block_bits, axis=1)
-    words = pack_frames_walk(mval, mlen, block_off.astype(jnp.int32), W, L)
-    return words, total_bits.astype(jnp.int32), blockfit.astype(jnp.int32)
-
-
 def _pack_pairs(mval, mlen, W: int, NW: int):
-    """Pack pre-merged <=32-bit item pairs: mval uint32 / mlen int32
-    [F, B, P].  The encode front produces pairs directly (skipping an
-    [F, B, 2+L] item materialization); see _pack_block_buffers for the
-    algorithm description.
+    """Two-level bit pack of pre-merged <=32-bit item pairs (no gathers or
+    large scatters): mval uint32 / mlen int32 [F, B, P].  The encode front
+    produces pairs directly (skipping an [F, B, 2+L] item materialization).
+
+    Level 1 packs each block's bits into an (NW+GR-1)-word buffer aligned
+    to the block's enclosing GR-word superword — purely elementwise
+    select-accumulates over [F, B] lanes.  Level 2 compacts the buffers
+    into the frame's word stream with a one-hot matmul (_merge_matmul).
 
     Returns (words, total_bits, blockfit_bits); blockfit_bits is the
     per-frame max of r2 + block_bits, the quantity fits_block_width checks
@@ -390,89 +250,13 @@ def _pack_pairs(mval, mlen, W: int, NW: int):
         acc = acc + jnp.sum(jnp.where(t + 1 == w, lo, jnp.uint32(0)), axis=2)
         buf4.append(acc)
     buf4 = jnp.stack(buf4, axis=2)  # [F, B, NB4]
-    words = _merge_mxu(buf4, block_off, F, B, W, NW, NB4, GR)
+    words = _merge_matmul(buf4, block_off, F, B, W, NW, NB4, GR)
     return words, total_bits.astype(jnp.int32), blockfit.astype(jnp.int32)
 
 
 
-def _encode_frames_fused(s, n_valid, params: Parameters, w_words: int | None = None, nw_words: int | None = None):
-    """Fully kernel-fused encode: the front end (diff/classify/codes) and the
-    block packer run as Pallas kernels in lanes-minor layout, with only the
-    tiny block-offset cumsum, the MXU merge, and the CRC in XLA."""
-    from .front_pallas import LANE_TILE, encode_front_pallas
-    from .pack_pallas import pack_blocks_pallas
-
-    S, B, L, W = frame_geometry(params)
-    if w_words is not None:
-        W = min(W, w_words)
-    NW = block_buffer_words(params)
-    if nw_words is not None:
-        NW = min(NW, nw_words)
-    GR = 8
-    NB4 = NW + GR - 1
-    F = s.shape[0]
-    N0 = F * B
-    pad = (-N0) % LANE_TILE
-    N = N0 + pad
-
-    def lanes(x, fill=0):
-        flat = x.reshape(1, N0)
-        if pad:
-            flat = jnp.concatenate([flat, jnp.full((1, pad), fill, x.dtype)], axis=1)
-        return flat
-
-    n = n_valid[:, None]
-    # Block sample layout: block b covers samples 1+bL..; its diff base is
-    # sample bL.
-    sblk = jnp.concatenate([s[:, 1:], jnp.zeros((F, 1), jnp.int32)], axis=1).reshape(F, B, L)
-    sblk = jnp.moveaxis(sblk, 2, 0).reshape(L, N0)
-    if pad:
-        sblk = jnp.concatenate([sblk, jnp.zeros((L, pad), jnp.int32)], axis=1)
-    sprev = lanes(s[:, ::L][:, :B])
-    bidx = jax.lax.broadcasted_iota(jnp.int32, (F, B), 1)
-    first_val = jnp.where((bidx == 0) & (n > 0), s[:, 0:1] & 0xFFFF, -1)
-    nv_lane = jnp.clip(n - 1 - bidx * L, 0, L)
-    first_l = lanes(first_val, fill=-1)
-    nv_l = lanes(nv_lane)
-
-    vals, lens, slot = encode_front_pallas(
-        sblk, sprev, first_l, nv_l, L, params.codes, params.thresholds
-    )
-
-    # ---- statistics (XLA; tiny) ----
-    slot_fb = slot[0, :N0].reshape(F, B)
-    present = nv_lane > 0
-    onehot = (slot_fb[:, :, None] == jnp.arange(6)[None, None, :]) & present[:, :, None]
-    stats = jnp.sum(onehot * nv_lane[:, :, None], axis=1)
-
-    # ---- block offsets (XLA cumsum; tiny) ----
-    block_bits = jnp.sum(lens, axis=0)[:N0].reshape(F, B)
-    block_end = jnp.cumsum(block_bits, axis=1)
-    block_off = block_end - block_bits
-    total_bits = block_end[:, -1]
-    blockfit = jnp.max((block_off & (32 * GR - 1)) + block_bits, axis=1)
-    r2 = lanes(block_off & (32 * GR - 1))
-
-    buf4_ln = pack_blocks_pallas(vals, lens, r2, NB4, False)
-    buf4 = jnp.moveaxis(buf4_ln[:, :N0].reshape(NB4, F, B), 0, 2)
-
-    words = _merge_mxu(buf4, block_off, F, B, W, NW, NB4, GR)
-    total_bits = total_bits.astype(jnp.int32)
-    nbytes = (total_bits + 7) // 8
-    nbytes = nbytes + (nbytes & 1)
-    crc = crc16_words_jax(words, nbytes, W)
-    return {
-        "payload_words": words,
-        "nbytes": nbytes.astype(jnp.int32),
-        "crc": crc.astype(jnp.int32),
-        "stats": stats,
-        "total_bits": total_bits,
-        "blockfit_bits": blockfit.astype(jnp.int32),
-    }
-
-
-def _merge_mxu(buf4, block_off, F, B, W, NW, NB4, GR=8):
-    """Compact per-block buffers into the frame word stream on the MXU.
+def _merge_matmul(buf4, block_off, F, B, W, NW, NB4, GR=8):
+    """Compact per-block buffers into the frame word stream with a matmul.
 
     Placing the (monotone) block rows at their start superwords is a one-hot
     int8 byte-plane matmul — exact because contributions to any output word
@@ -511,21 +295,9 @@ def _merge_mxu(buf4, block_off, F, B, W, NW, NB4, GR=8):
     return words
 
 
-# Sub-batch geometry for wide batches: XLA keeps the level-1 pack's
-# [F, B]-shaped intermediates VMEM-resident up to roughly F=1024 (profiled
-# S(1) placements); beyond that they spill to HBM and throughput falls off
-# a cliff (F=1536 monolithic: 7.6 GB/s vs 10.2 GB/s as 2x768 sub-batches
-# inside ONE jitted program, measured v5e).  Wide batches are therefore
-# chunked at trace time — callers keep a single dispatch and a single
-# output pytree.
-_SUBBATCH = 768
-_SUBBATCH_THRESHOLD = 1024
-
-
 @functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
 def encode_frames(samples: jax.Array, n_valid: jax.Array, params: Parameters, pack_mode: str = "block", w_words: int | None = None, nw_words: int | None = None):
-    """Encode a batch of frames (batches > 1024 frames are processed as
-    768-frame sub-batches inside the jitted program; see _SUBBATCH).
+    """Encode a batch of frames.
 
     samples: int16/int32 [F, S] (payload samples, zero-padded past n_valid)
     n_valid: int32 [F] — number of valid samples per frame (0 = dummy frame)
@@ -548,19 +320,6 @@ def encode_frames(samples: jax.Array, n_valid: jax.Array, params: Parameters, pa
       stats:    int32 [F, 6] — per-frame code-usage sample counts
       blockfit_bits: int32 [F] — max block r2+bits (block-rung escalation)
     """
-    F = samples.shape[0]
-    if F > _SUBBATCH_THRESHOLD:
-        outs = [
-            _encode_frames_body(
-                samples[b : b + _SUBBATCH], n_valid[b : b + _SUBBATCH], params, pack_mode, w_words, nw_words
-            )
-            for b in range(0, F, _SUBBATCH)
-        ]
-        return {k: jnp.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
-    return _encode_frames_body(samples, n_valid, params, pack_mode, w_words, nw_words)
-
-
-def _encode_frames_body(samples, n_valid, params: Parameters, pack_mode, w_words, nw_words):
     S, B, L, W = frame_geometry(params)
     if w_words is not None:
         W = min(W, w_words)
@@ -573,12 +332,6 @@ def _encode_frames_body(samples, n_valid, params: Parameters, pack_mode, w_words
 
     s = samples.astype(jnp.int32)
     n = n_valid.astype(jnp.int32)[:, None]  # [F, 1]
-
-    if pack_mode == "fused_pallas":
-        return _encode_frames_fused(s, n_valid.astype(jnp.int32), params, w_words, nw_words)
-
-    if pack_mode == "block" and _use_fused_encode(params, W, F):
-        return _finish_fused(samples, n_valid, params, W)
 
     # ---- diffs over the frame (encoder.rs:222-225) ----
     # One shared shifted copy feeds both the diffs and the literal samples.
@@ -656,24 +409,16 @@ def _encode_frames_body(samples, n_valid, params: Parameters, pack_mode, w_words
         pl = l0 + l1
         mval = jnp.concatenate([p0_val[:, :, None], pv], axis=2)
         mlen = jnp.concatenate([p0_len[:, :, None], pl], axis=2)
-        if _use_pallas_pack(W, B, L, mval.shape[2], F):
-            words, total_bits, blockfit = _pack_pairs_walk(mval, mlen, W, L)
-        else:
-            words, total_bits, blockfit = _pack_pairs(mval, mlen, W, NW)
-    elif pack_mode in ("segment", "block_pallas"):
+        words, total_bits, blockfit = _pack_pairs(mval, mlen, W, NW)
+    elif pack_mode == "segment":
         # ---- item stream as [F, B, 2+L]: [first?][hdr][samples] ----
         # Slot 0 carries the frame's raw 16-bit first sample in block 0 only.
         first_val = jnp.zeros((F, B, 1), jnp.int32).at[:, 0, 0].set(s[:, 0] & 0xFFFF)
         first_len = jnp.zeros((F, B, 1), jnp.int32).at[:, 0, 0].set(jnp.where(n_valid > 0, 16, 0))
         item_val = jnp.concatenate([first_val, hdr_val[:, :, None], val], axis=2).astype(jnp.uint32)
         item_len = jnp.concatenate([first_len, hdr_len[:, :, None], ln], axis=2)
-        if pack_mode == "block_pallas":
-            words, total_bits, blockfit = _pack_block_buffers(
-                item_val, item_len, W, NW, use_pallas=True
-            )
-        else:
-            words, total_bits = _pack_segment_sum(item_val.reshape(F, -1), item_len.reshape(F, -1), W)
-            blockfit = jnp.zeros((F,), jnp.int32)  # segment pack has no block buffers
+        words, total_bits = _pack_segment_sum(item_val.reshape(F, -1), item_len.reshape(F, -1), W)
+        blockfit = jnp.zeros((F,), jnp.int32)  # segment pack has no block buffers
     else:
         raise ValueError(f"unknown pack_mode {pack_mode!r}")
 

@@ -1,15 +1,16 @@
-"""Multi-chip scale-out over a device mesh.
+"""Multi-device scale-out over a device mesh.
 
 The reference is single-threaded (SURVEY.md §2 "parallelism inventory"); the
 format's latent parallel structure — self-contained frames — is what this
-module promotes to the multi-chip axis.  Frames (and whole files) are
-embarrassingly parallel, so the honest TPU mapping is data parallelism over
-a 1-D mesh with `shard_map`: each chip encodes/decodes its shard of frames
-with zero inter-chip communication inside the codec (ICI is only used by the
-input pipeline if at all).
+module promotes to the multi-device axis.  Frames (and whole files) are
+embarrassingly parallel, so the mapping is data parallelism over a 1-D mesh
+with `shard_map`: each device encodes/decodes its shard of frames with zero
+inter-device communication inside the codec.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import numpy as np
@@ -28,18 +29,26 @@ def make_mesh(devices=None, axis_name: str = AXIS) -> Mesh:
 def encode_frames_sharded(samples, n_valid, params: Parameters, mesh: Mesh, w_words: int | None = None, nw_words: int | None = None):
     """Encode a [F, S] batch sharded across the mesh's frame axis.
 
-    F must be divisible by the mesh size.  Each device runs the single-chip
+    F must be divisible by the mesh size.  Each device runs the single-device
     pipeline on its local shard — no collectives (frames are independent).
     w_words/nw_words: adaptive rung specializations (encode_frames)."""
+    samples = jax.device_put(samples, NamedSharding(mesh, P(AXIS, None)))
+    n_valid = jax.device_put(n_valid, NamedSharding(mesh, P(AXIS)))
+    return _encode_fn(params, mesh, w_words, nw_words)(samples, n_valid)
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_fn(params: Parameters, mesh: Mesh, w_words, nw_words):
+    """The jitted sharded encode, built once per specialization (a fresh
+    shard_map per call would be traced again on every batch)."""
     from ..ops.encode_kernel import encode_frames
 
     def local(s, n):
         return encode_frames(s, n, params, "block", w_words, nw_words)
 
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         local,
         mesh=mesh,
-        check_vma=False,  # pallas_call out_shapes carry no vma info
         in_specs=(P(AXIS, None), P(AXIS)),
         out_specs={
             "payload_words": P(AXIS, None),
@@ -49,30 +58,30 @@ def encode_frames_sharded(samples, n_valid, params: Parameters, mesh: Mesh, w_wo
             "total_bits": P(AXIS),
             "blockfit_bits": P(AXIS),
         },
-    )
-    samples = jax.device_put(samples, NamedSharding(mesh, P(AXIS, None)))
-    n_valid = jax.device_put(n_valid, NamedSharding(mesh, P(AXIS)))
-    return fn(samples, n_valid)
+    ))
 
 
 def decode_frames_sharded(payload, n_samples, payload_lens, params: Parameters, mesh: Mesh, n_blocks: int | None = None):
     """Decode a [F, W*4] payload batch sharded across the mesh's frame axis."""
+    payload = jax.device_put(payload, NamedSharding(mesh, P(AXIS, None)))
+    n_samples = jax.device_put(n_samples, NamedSharding(mesh, P(AXIS)))
+    payload_lens = jax.device_put(payload_lens, NamedSharding(mesh, P(AXIS)))
+    return _decode_fn(params, mesh, n_blocks)(payload, n_samples, payload_lens)
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_fn(params: Parameters, mesh: Mesh, n_blocks):
     from ..ops.decode_kernel import decode_frames
 
     def local(p, n, pl):
         return decode_frames(p, n, pl, params, n_blocks)
 
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         local,
         mesh=mesh,
-        check_vma=False,  # pallas_call out_shapes carry no vma info
         in_specs=(P(AXIS, None), P(AXIS), P(AXIS)),
         out_specs=(P(AXIS, None), P(AXIS)),
-    )
-    payload = jax.device_put(payload, NamedSharding(mesh, P(AXIS, None)))
-    n_samples = jax.device_put(n_samples, NamedSharding(mesh, P(AXIS)))
-    payload_lens = jax.device_put(payload_lens, NamedSharding(mesh, P(AXIS)))
-    return fn(payload, n_samples, payload_lens)
+    ))
 
 
 def _words_to_bytes(words):
@@ -86,7 +95,7 @@ def _words_to_bytes(words):
 
 def roundtrip_step(params: Parameters, mesh: Mesh):
     """The full sharded pipeline step (encode -> decode -> verify) as one
-    jittable function over the mesh; used by the multi-chip dry run."""
+    jittable function over the mesh; used by the multi-device dry run."""
     from ..ops.decode_kernel import decode_frames
     from ..ops.encode_kernel import encode_frames
 
@@ -100,14 +109,13 @@ def roundtrip_step(params: Parameters, mesh: Mesh):
         valid = idx < n[:, None]
         exact = jnp.all(jnp.where(valid, dec == s.astype(jnp.int16), True))
         local_ok = (exact & ~err.any()).astype(jnp.int32)
-        # One ICI collective makes the verdict replicated across the mesh.
+        # One collective makes the verdict replicated across the mesh.
         return enc["nbytes"], jax.lax.psum(local_ok, AXIS) == jax.lax.axis_size(AXIS)
 
     return jax.jit(
         jax.shard_map(
             local,
             mesh=mesh,
-            check_vma=False,  # pallas_call out_shapes carry no vma info
             in_specs=(P(AXIS, None), P(AXIS)),
             out_specs=(P(AXIS), P()),
         )

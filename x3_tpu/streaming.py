@@ -1,7 +1,7 @@
 """Streaming encode with bounded memory (the IterChannel equivalent).
 
 The reference bounds memory by pulling one frame at a time from a lazy
-sample iterator (x3::IterChannel, x3.rs:47-69; encoder.rs:67-74).  The TPU
+sample iterator (x3::IterChannel, x3.rs:47-69; encoder.rs:67-74).  The device
 pipeline wants large batches instead, so the streaming encoder buffers up to
 `batch_frames` whole frames (default 256 frames = 2.56 M samples ≈ 5 MB),
 encodes them in one device call, and appends the resulting frame stream to

@@ -2,7 +2,7 @@
 
 The reference relies on external tooling — `perf` against a debug-symbol
 release build plus a PGO pipeline (Cargo.toml:13-17, test/compile-pgo.sh).
-The TPU-native equivalents:
+The JAX equivalents:
 
 * `trace(logdir)` — JAX profiler trace context (view with XProf/TensorBoard);
 * `annotate(name)` — named TraceAnnotation around a region;
